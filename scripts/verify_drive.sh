@@ -2,25 +2,28 @@
 # Quick end-to-end service drive (the .claude/skills/verify recipe,
 # scripted): launches both services on :8001/:8000 with the fake
 # embedder, drives embed/search/batch/filter + error probes, exits
-# nonzero on any failed check. Usage: bash scripts/verify_drive.sh
+# nonzero on any failed check. The embedding service is numpy-only and
+# never opens a JAX device, so the indexing service is the one JAX
+# process. Usage: bash scripts/verify_drive.sh [config.yaml]
 set -u
-CFG=${1:-/tmp/vdb_verify/config.yaml}
+WORK=$(mktemp -d)
+CFG=${1:-$WORK/config.yaml}
 if [ ! -f "$CFG" ]; then
-  mkdir -p /tmp/vdb_verify/data
-  cat > /tmp/vdb_verify/config.yaml <<'EOF'
+  mkdir -p "$WORK/data"
+  cat > "$CFG" <<EOF
 embedding: {model: "fake-64", dimension: 64}
 device: cpu
 index: {ef_construction: 60, M: 8, flush_threshold: 5}
-vector_db: {file_path: /tmp/vdb_verify/data/vdb, dimension: 64, capacity: 1024}
+vector_db: {file_path: $WORK/data/vdb, dimension: 64, capacity: 1024}
 EOF
 fi
 CONFIG_PATH=$CFG PORT=8001 python -m vector_db_tpu.api.embedding_app \
-  > /tmp/verify_emb.log 2>&1 &
+  > "$WORK/verify_emb.log" 2>&1 &
 EPID=$!
 sleep 4
 CONFIG_PATH=$CFG USE_EMBEDDING_SERVICE=true \
   EMBEDDING_SERVICE_URL=http://127.0.0.1:8001 PORT=8000 \
-  python -m vector_db_tpu.api.app > /tmp/verify_idx.log 2>&1 &
+  python -m vector_db_tpu.api.app > "$WORK/verify_idx.log" 2>&1 &
 IPID=$!
 trap 'kill $EPID $IPID 2>/dev/null' EXIT
 ok=1

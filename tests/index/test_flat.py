@@ -72,3 +72,38 @@ def test_flat_blocksel_precision(rng):
     np.testing.assert_array_equal(i_b, i_f)
     np.testing.assert_allclose(d_b, d_f, rtol=1e-4)
     assert 7 not in set(np.asarray(i_b).ravel().tolist())
+
+
+@pytest.mark.parametrize("precision", ["blocksel", "blocksel2p"])
+def test_flat_blocksel_mirror_padded_once(rng, monkeypatch, precision):
+    """The blocksel mirror is padded to the block top-m kernel's tiles once,
+    when it is built (capacity 3000 is not a multiple of them). Searches
+    over it return what they return over an unpadded mirror, and padded
+    or deleted rows never come back."""
+    import vector_db_tpu.ops.pallas.block_topm as BT
+
+    n, dim = 2900, 32
+    # low-rank rows: the PCA mirror keeps the neighbour gaps
+    a = rng.standard_normal((8, dim)).astype(np.float32)
+    x = (rng.standard_normal((n, 8)).astype(np.float32) @ a
+         + 0.01 * rng.standard_normal((n, dim)).astype(np.float32))
+    nodes = [Node(id=i, embedding=x[i]) for i in range(n)]
+    q = rng.standard_normal((6, 8)).astype(np.float32) @ a
+
+    def run():
+        idx = FlatIndex(precision=precision, capacity=3000)
+        idx.build_index(nodes)
+        for i in range(0, n, 7):
+            idx.delete_node(i)
+        return idx, idx.search_batch(q, k=10)
+
+    idx, (d, ids) = run()
+    _, tab, x_sq = idx._proj_mirror()
+    assert tab.shape[0] % 2048 == 0 and tab.shape[0] >= 3000
+    assert x_sq.shape[0] == tab.shape[0]
+    assert ((ids % 7 != 0) & (ids >= 0) & (ids < n)).all()
+    monkeypatch.setattr(BT, "pad_mirror", lambda t, s, block=128: (t, s))
+    idx2, (d2, ids2) = run()
+    assert idx2._proj_mirror()[1].shape[0] == 3000
+    np.testing.assert_array_equal(ids, ids2)
+    np.testing.assert_allclose(d, d2, rtol=1e-6)

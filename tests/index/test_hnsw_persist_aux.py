@@ -1,4 +1,4 @@
-"""HNSW auxiliary-state persistence (round-3 item: reload must not
+"""HNSW auxiliary-state persistence (reload must not
 silently retrain PQ codebooks / PCA projections — minutes at 1M scale).
 
 Ports IvfIndex's pattern (index/ivf.py save_index/load_index) to HNSW:

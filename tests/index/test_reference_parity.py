@@ -16,8 +16,8 @@ import pytest
 from vector_db_tpu.index.hnsw import HNSW
 
 REFERENCE_ANCHORS = {50: 0.877, 100: 0.953, 200: 0.977}
-TOLERANCE = 0.02  # tightened from 0.06 in round 4 (VERDICT weak #9):
-# the recall trajectory is stable, a 6-point regression must not pass
+TOLERANCE = 0.02  # the recall trajectory is stable: a 6-point
+# regression must not pass
 
 
 @pytest.mark.slow

@@ -80,7 +80,7 @@ def test_health(config_path, tmp_path):
 def test_insert_then_search(config_path, tmp_path):
     async def go():
         client = await _client_for(config_path, tmp_path)
-        docs = ["the cat sat", "a dog barked", "quantum mechanics", "tpu kernels"]
+        docs = ["the cat sat", "a dog barked", "quantum mechanics", "gpu kernels"]
         for d in docs:
             r = await client.post(
                 "/embed", json={"content": d, "metadata": {"kind": "test"}}

@@ -137,8 +137,7 @@ def test_three_phase_low_rank_mirror():
     tab = jnp.dot(emb, proj).astype(jnp.bfloat16)
     qp = jnp.dot(qd, proj)
     d, i = block_select_search_3p(qd, tab, qp, xsq, emb, valid, K,
-                                  tile=1024, block=128, blocks_k=20,
-                                  rows_k=64)
+                                  block=128, blocks_k=20, rows_k=64)
     gd, gi = exact_search_tiled(qd, emb, valid, K, tile=1024)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(gi))
     np.testing.assert_allclose(np.asarray(d), np.asarray(gd), rtol=1e-5)
@@ -157,8 +156,7 @@ def test_three_phase_masked_and_padded():
     xsq = jnp.sum(emb * emb, -1)
     tab = emb.astype(jnp.bfloat16)
     d, i = block_select_search_3p(qd, tab, qd, xsq, emb, valid, K,
-                                  tile=1024, block=128, blocks_k=12,
-                                  rows_k=48)
+                                  block=128, blocks_k=12, rows_k=48)
     gd, gi = exact_search_tiled(qd, emb, valid, K, tile=1024)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(gi))
     assert not (set(np.asarray(i).ravel().tolist())
@@ -174,10 +172,9 @@ def test_3p_p2_chunk_equivalence(data):
     xsq = jnp.sum(xd * xd, -1)
     ptab = xd.astype(jnp.bfloat16)
     a = block_select_search_3p(qd, ptab, qd, xsq, xd, valid, 10,
-                               tile=1024, blocks_k=8, rows_k=64)
+                               blocks_k=8, rows_k=64)
     b = block_select_search_3p(qd, ptab, qd, xsq, xd, valid, 10,
-                               tile=1024, blocks_k=8, rows_k=64,
-                               p2_chunk=2)
+                               blocks_k=8, rows_k=64, p2_chunk=2)
     assert (np.asarray(a[1]) == np.asarray(b[1])).all()
     np.testing.assert_allclose(np.asarray(a[0]), np.asarray(b[0]),
                                rtol=1e-6)

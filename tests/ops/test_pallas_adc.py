@@ -1,50 +1,31 @@
-"""Pallas fused ADC scan vs the XLA ADC paths (interpret mode on CPU)."""
+"""PQCodec.adc_search formulations: LUT gather vs one-hot matmul, and the
+refusal of removed modes."""
 
-import jax.numpy as jnp
-import numpy as np
+import pytest
 
 from vector_db_tpu.index.pq import PQCodec
-from vector_db_tpu.ops.pallas.adc_scan import adc_topk
 
 
-def test_adc_topk_matches_xla_gather(rng):
-    emb = rng.standard_normal((300, 32)).astype(np.float32)
-    codec = PQCodec(k=8, chunks=8, dim=32)
-    codec.train(emb, seed=0)
-    codes = codec.encode(emb)
-    q = rng.standard_normal((4, 32)).astype(np.float32)
-
-    d_ref, i_ref = codec.adc_search(q, codes, top_k=10, mode="gather")
-    lut = codec.adc_lut(q)
-    d_p, i_p = adc_topk(lut, jnp.asarray(codes, jnp.int32),
-                        jnp.ones((300,), bool), 10, tile=128, interpret=True)
-    np.testing.assert_array_equal(np.asarray(i_p), i_ref)
-    np.testing.assert_allclose(np.asarray(d_p), d_ref, rtol=1e-3, atol=1e-3)
-
-
-def test_adc_topk_valid_mask(rng):
-    emb = rng.standard_normal((100, 16)).astype(np.float32)
-    codec = PQCodec(k=4, chunks=4, dim=16)
-    codec.train(emb, seed=1)
-    codes = codec.encode(emb)
-    valid = np.ones(100, bool)
-    valid[7] = False
-    lut = codec.adc_lut(emb[7:8])
-    _, ids = adc_topk(lut, jnp.asarray(codes, jnp.int32),
-                      jnp.asarray(valid), 5, tile=64, interpret=True)
-    assert 7 not in np.asarray(ids)[0]
-
-
-def test_adc_search_pallas_mode_matches_matmul(rng):
-    """PQCodec.adc_search(mode='pallas') routes through the fused kernel
-    (interpret off-TPU) and must agree with the production matmul path."""
-    from vector_db_tpu.index.pq import PQCodec
-
+def _codec(rng):
     emb = rng.standard_normal((600, 32)).astype("float32")
     codec = PQCodec(k=16, chunks=4, dim=32)
     codec.train(emb, seed=0)
-    codes = codec.encode(emb)
+    return codec, codec.encode(emb)
+
+
+def test_adc_search_pallas_mode_matches_matmul(rng):
+    """The default gather formulation must agree with the one-hot matmul
+    formulation."""
+    codec, codes = _codec(rng)
     q = rng.standard_normal((5, 32)).astype("float32")
     d_m, i_m = codec.adc_search(q, codes, top_k=8, mode="matmul")
-    d_p, i_p = codec.adc_search(q, codes, top_k=8, mode="pallas")
-    assert (i_m == i_p).mean() > 0.9  # f32 sum-order ties may differ
+    d_g, i_g = codec.adc_search(q, codes, top_k=8)
+    assert (i_m == i_g).mean() > 0.9  # f32 sum-order ties may differ
+
+
+@pytest.mark.parametrize("mode", ["pallas", "pallas_interp", "onehot8"])
+def test_adc_search_refuses_unknown_mode(rng, mode):
+    codec, codes = _codec(rng)
+    q = rng.standard_normal((2, 32)).astype("float32")
+    with pytest.raises(ValueError, match="unknown adc_search mode"):
+        codec.adc_search(q, codes, top_k=4, mode=mode)

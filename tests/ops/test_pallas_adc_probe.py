@@ -1,54 +1,59 @@
-"""Interpret-mode validation of the fused IVF-PQ probe kernel
-(ops/pallas/adc_probe.py) against a numpy LUT-gather oracle."""
+"""IVF-PQ probe LUT scoring (ivf.adc_scores, the XLA "gather"
+formulation) against a numpy LUT-gather oracle, and the refusal of
+removed formulations."""
 
-import numpy as np
 import jax.numpy as jnp
+import numpy as np
+import pytest
 
-from vector_db_tpu.ops.pallas.adc_probe import BIG, adc_probe_scores
+from vector_db_tpu.index.ivf import ADC_MODES, adc_scores, check_adc
 
 
-def _oracle(lut, codes_t, corr, valid):
-    b, m, ksub = lut.shape
-    p = codes_t.shape[2]
-    out = np.zeros((b, p), np.float32)
-    for q in range(b):
-        for i in range(p):
-            s = sum(lut[q, j, codes_t[q, j, i]] for j in range(m))
-            out[q, i] = s + corr[q, i] if valid[q, i] else BIG
-    return out
+def _oracle(lut, codes):
+    m = codes.shape[1]
+    return lut[np.arange(m)[None, :], codes].sum(axis=1)
+
+
+def _scores(lut, codes):
+    m, ksub = lut.shape
+    return np.asarray(adc_scores(jnp.asarray(lut.reshape(-1)),
+                                 jnp.asarray(codes), ksub))
 
 
 def test_adc_probe_matches_oracle(rng):
-    b, m, ksub, p = 3, 4, 16, 70  # odd P exercises the tile padding
-    lut = rng.standard_normal((b, m, ksub)).astype(np.float32)
-    codes = rng.integers(0, ksub, (b, m, p)).astype(np.int32)
-    corr = rng.standard_normal((b, p)).astype(np.float32)
-    valid = rng.random((b, p)) > 0.2
-
-    got = np.asarray(adc_probe_scores(
-        jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(corr),
-        jnp.asarray(valid), tile=32, interpret=True))
-    want = _oracle(lut, codes, corr, valid)
-    # hi/lo bf16 LUT pair: exact to ~2^-16 relative per term
-    ok = valid
-    np.testing.assert_allclose(got[ok], want[ok], rtol=2e-4, atol=2e-4)
-    assert np.all(got[~ok] >= BIG)
+    m, ksub, p = 4, 16, 70
+    lut = rng.standard_normal((m, ksub)).astype(np.float32)
+    codes = rng.integers(0, ksub, (p, m)).astype(np.uint8)
+    want = _oracle(lut, codes)
+    # the same f32 terms summed in another order
+    np.testing.assert_allclose(_scores(lut, codes), want,
+                               rtol=2e-4, atol=2e-3)
 
 
 def test_adc_probe_production_shape(rng):
-    """The 1M-class probe shape (m=16, ksub=256, tile=1024) in interpret
-    mode on a thin slice: one query block row, two tiles."""
-    b, m, ksub, p = 2, 16, 256, 2048
-    lut = (rng.standard_normal((b, m, ksub)) ** 2).astype(np.float32)
-    codes = rng.integers(0, ksub, (b, m, p)).astype(np.int32)
-    corr = np.zeros((b, p), np.float32)
-    valid = np.ones((b, p), bool)
+    """The 1M-class probe shape: m=16 subspaces x ksub=256."""
+    m, ksub, p = 16, 256, 2048
+    lut = (rng.standard_normal((m, ksub)) ** 2).astype(np.float32)
+    codes = rng.integers(0, ksub, (p, m)).astype(np.uint8)
+    want = _oracle(lut, codes)
+    np.testing.assert_allclose(_scores(lut, codes), want,
+                               rtol=2e-4, atol=2e-3)
 
-    got = np.asarray(adc_probe_scores(
-        jnp.asarray(lut), jnp.asarray(codes), jnp.asarray(corr),
-        jnp.asarray(valid), tile=1024, interpret=True))
-    idx = np.arange(p)
-    want = np.stack([
-        lut[q, np.arange(m)[:, None], codes[q, :, idx].T].sum(axis=0)
-        for q in range(b)])
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-3)
+
+@pytest.mark.parametrize("adc", ADC_MODES)
+def test_adc_formulation_preserves_order(rng, adc):
+    """The formulation ranks candidates as the f32 oracle does."""
+    check_adc(adc)
+    m, ksub, p = 8, 64, 512
+    lut = (rng.random((m, ksub)) * 100).astype(np.float32)
+    codes = rng.integers(0, ksub, (p, m)).astype(np.uint8)
+    want = np.argsort(_oracle(lut, codes), kind="stable")[:10]
+    got = np.argsort(_scores(lut, codes), kind="stable")[:10]
+    assert len(set(want) & set(got)) >= 9
+
+
+@pytest.mark.parametrize("adc", ["pallas", "pallas_interp", "onehot",
+                                 "onehot8"])
+def test_removed_formulation_refused(adc):
+    with pytest.raises(ValueError, match="unknown IVF-PQ adc"):
+        check_adc(adc)

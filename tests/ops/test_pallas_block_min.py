@@ -1,14 +1,16 @@
-"""block_min_scan (fused phase-1 block-min kernel) vs the XLA oracle.
-
-Interpret mode on CPU; the on-chip compile check lives in
-scripts/pallas_onchip.py (BENCH_PALLAS.json).
-"""
+"""Block minima — the 3-phase search's phase 1, now the m=1 block top-m
+scan (ops/pallas/block_topm.py) — vs the XLA oracle."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vector_db_tpu.ops.pallas.block_min import block_min_scan
+from vector_db_tpu.ops.pallas.block_topm import block_topm_scan
+
+
+def block_min_scan(q, tab, xsq_eff):
+    mins, _ = block_topm_scan(q, tab, xsq_eff, block=128, m=1)
+    return mins
 
 
 @pytest.mark.parametrize("n,ds,b", [(4096 + 512, 64, 37), (2048, 128, 8)])
@@ -23,13 +25,12 @@ def test_matches_xla_oracle(n, ds, b):
     vm[::13] = False
     xsq_eff = jnp.where(jnp.asarray(vm), xsq, 2.0e38)
 
-    mins = block_min_scan(q, tab, xsq_eff, block=128, tile=1024,
-                          qtile=64, interpret=True)
+    mins = block_min_scan(q, tab, xsq_eff)
 
     cross = jnp.dot(q.astype(jnp.bfloat16), tab.T,
                     preferred_element_type=jnp.float32)
     d = xsq_eff[None, :] - 2.0 * cross
-    pad = (-n) % 1024
+    pad = (-n) % 128
     if pad:
         d = jnp.concatenate([d, jnp.full((b, pad), 2.0e38)], axis=1)
     oracle = jnp.min(d.reshape(b, -1, 128), axis=-1)
@@ -48,13 +49,14 @@ def test_fully_invalid_block_exceeds_threshold():
     xsq_eff = jnp.where(
         jnp.arange(n) < 128, 2.0e38,
         jnp.asarray((rng.random(n)).astype(np.float32)))
-    mins = block_min_scan(q, tab, xsq_eff, block=128, tile=1024,
-                          qtile=64, interpret=True)
+    mins = block_min_scan(q, tab, xsq_eff)
     assert bool((np.asarray(mins[:, 0]) > 1.0e37).all())
     assert bool((np.asarray(mins[:, 1:]) < 1.0e37).all())
 
 
 def test_three_phase_with_pallas_phase1_matches():
+    """The 3-phase search with its block top-m phase 1 returns the exact
+    top-k."""
     from vector_db_tpu.ops.exact import (
         block_select_search_3p,
         exact_search_tiled,
@@ -77,7 +79,6 @@ def test_three_phase_with_pallas_phase1_matches():
     qp = jnp.dot(qd, proj)
     gd, gi = exact_search_tiled(qd, emb, valid, k, tile=1024)
     dd, ii = block_select_search_3p(qd, tab, qp, xsq, emb, valid, k,
-                                    tile=1024, block=128, blocks_k=20,
-                                    rows_k=64, pallas_phase1=True)
+                                    block=128, blocks_k=20, rows_k=64)
     np.testing.assert_array_equal(np.asarray(ii), np.asarray(gi))
     np.testing.assert_allclose(np.asarray(dd), np.asarray(gd), rtol=1e-5)

@@ -131,7 +131,7 @@ def test_ivf_autotune_picks_n_probe(tmp_path, rng):
 
 def test_filtered_queries_calibrate_per_selectivity(tmp_path, rng):
     """Filtered hnsw queries route through a selectivity-bucketed
-    decision (round-4: the scan/graph ranking flips with match
+    decision (the scan/graph ranking flips with match
     fraction) and the REAL filter is always honored."""
     svc, nodes = build_service(tmp_path, rng)
     allowed = {n.id for n in nodes if n.id % 2 == 0}  # ~50% selectivity

@@ -2,7 +2,7 @@
 
 A user who pins ``index.precision: bf16`` on a corpus whose neighbor
 gaps are below the bf16 rounding noise got silently-garbage results
-(measured: recall@10 0.61 on a SIFT-like 128-d corpus, BENCH_SIFT);
+(a SIFT-like 128-d corpus is such a case);
 the guard measures calibration recall on live rows at mirror build and
 warns/refuses below threshold. The adversarial corpus here makes the
 table-rounding term dominate on any platform: coordinates ~N(0,1)*256

@@ -343,7 +343,7 @@ def test_sharded_hnsw_multislice_config(tmp_path, rng):
 
 def test_hnsw_wide_mode_service(tmp_path, rng):
     """index.wide activates wide-beam traversal once min_size is crossed
-    (round-3 frontier-parallel search); self-query stays exact and the
+    (frontier-parallel search); self-query stays exact and the
     single-query path resolves Nodes."""
     cfg = make_config(
         tmp_path, "hnsw",

@@ -51,7 +51,7 @@ def test_sentence_transformer_wrapper_mocked():
     fake_cls = MagicMock(return_value=fake_model)
     with patch.object(st_mod, "SentenceTransformer", fake_cls), \
          patch.object(st_mod, "_HAS_ST", True):
-        emb = st_mod.SentenceTransformerEmbedder("some-model", device="tpu")
+        emb = st_mod.SentenceTransformerEmbedder("some-model", device="gpu")
         # non-torch device names fall back to cpu for the torch model
         assert fake_cls.call_args.kwargs["device"] == "cpu"
         assert emb.dim == 8
@@ -75,3 +75,15 @@ def test_device_utils_on_cpu():
     info = get_device_info()
     assert info["device_count"] == 8  # virtual mesh
     assert info["platforms"] == ["cpu"]
+
+
+def test_get_device_gpu_raises_without_gpu():
+    """No silent CPU fallback: 'gpu' on a CPU-only process is an error."""
+    with pytest.raises(RuntimeError, match="no GPU"):
+        get_device("gpu")
+
+
+@pytest.mark.parametrize("pref", ["tpu", "mps"])
+def test_get_device_unknown_raises(pref):
+    with pytest.raises(ValueError, match="unknown device"):
+        get_device(pref)

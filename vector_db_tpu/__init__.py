@@ -1,13 +1,13 @@
-"""TPU-native vector database engine.
+"""Accelerator-native vector database engine.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 GProgrammer1/Vector-DB (HNSW + IVF ANN indexes, product quantization, exact
 search, tiered persistent vector storage, metadata filtering, and a FastAPI
-embed/search frontend), built TPU-first:
+embed/search frontend), built for the accelerator first:
 
-- distances are fused batched matmuls on the MXU, not per-pair Python calls
+- distances are fused batched matmuls, not per-pair Python calls
   (reference: src/vector_db/util/distance.py:3-4 called per graph edge);
-- HNSW is fixed-degree int32 neighbor tables in HBM traversed by a batched,
+- HNSW is fixed-degree int32 device neighbor tables traversed by a batched,
   masked beam search under ``jax.lax.while_loop`` (reference:
   src/vector_db/indexing/hnsw.py — heapq + dict pointer chasing);
 - PQ trains codebooks with vmapped k-means and scores via fused ADC

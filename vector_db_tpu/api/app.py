@@ -381,7 +381,7 @@ def create_app(
         enable_compilation_cache()
         cfg_path = app["config_path"]
         config = load_config(cfg_path)
-        apply_device(str(config.get("device", "auto")))
+        apply_device(str(config["device"]))
         vdb = config.get("vector_db", {})
         emb_cfg = config.get("embedding", {})
 
@@ -416,14 +416,13 @@ def create_app(
             index_file = Path(file_path).with_suffix(".index.npz")
             app["indexing_service"] = IndexingService(
                 storage=app["storage_service"].storage,
-                config_path=str(cfg_path) if cfg_path else "",
+                config_path=config,
                 index_file=str(index_file),
             )
 
         # Warm the search kernel so the first user request is not a cold
-        # XLA compile (minutes on remote TPU backends). Runs in a worker
-        # thread so the server accepts requests immediately. Opt out with
-        # VDB_TPU_WARMUP=0.
+        # XLA compile. Runs in a worker thread so the server accepts
+        # requests immediately. Opt out with VDB_TPU_WARMUP=0.
         if os.getenv("VDB_TPU_WARMUP", "1") == "1":
             import asyncio
 

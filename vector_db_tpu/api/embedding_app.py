@@ -77,12 +77,8 @@ def create_app(config_path: Optional[str] = None) -> web.Application:
     app["config_path"] = config_path or os.getenv(ENV_CONFIG_PATH)
 
     async def on_startup(app: web.Application) -> None:
-        from vector_db_tpu.config import load_config
-        from vector_db_tpu.runtime import apply_device
-
-        apply_device(
-            str(load_config(app["config_path"]).get("device", "auto"))
-        )
+        # no JAX device here: the embedders are numpy (fake) or torch, so
+        # the indexing service stays the only JAX process on the card
         app["embedding_service"] = EmbeddingService(app["config_path"])
 
     app.on_startup.append(on_startup)

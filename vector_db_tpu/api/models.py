@@ -1,7 +1,7 @@
 """Request/response schemas.
 
 Parity target: reference ``src/vector_db/api/models.py:5-27`` — identical
-field names and defaults. Batch variants are TPU-first additions: the
+field names and defaults. Batch variants are additions: the
 engine answers whole query batches in one device program, so the API
 exposes that directly.
 """

@@ -15,9 +15,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Dict, Optional, Union
-
-import yaml
+from typing import Any, Dict, Mapping, Optional, Union
 
 # Env vars honoured by the services/API (reference api/app.py:16,32-33).
 ENV_CONFIG_PATH = "CONFIG_PATH"
@@ -29,7 +27,7 @@ DEFAULTS: Dict[str, Any] = {
         "model": "sentence-transformers/all-MiniLM-L6-v2",
         "dimension": 384,
     },
-    "device": "tpu",
+    "device": "gpu",
     "index": {
         "ef_construction": 200,
         "M": 16,
@@ -53,16 +51,23 @@ def _merge(base: Dict[str, Any], override: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_config(path: Optional[Union[str, Path]] = None) -> Dict[str, Any]:
+def load_config(
+    path: Optional[Union[str, Path, Mapping[str, Any]]] = None,
+) -> Dict[str, Any]:
     """Load YAML config merged over defaults.
 
     ``path`` resolution order: explicit argument, ``CONFIG_PATH`` env var,
-    else pure defaults.
+    else pure defaults. A mapping is taken as the already-parsed config
+    (no YAML parser needed).
     """
+    if isinstance(path, Mapping):
+        return _merge(DEFAULTS, dict(path))
     if path is None:
         path = os.environ.get(ENV_CONFIG_PATH)
     raw: Dict[str, Any] = {}
     if path is not None and Path(path).exists():
+        import yaml
+
         with open(path) as f:
             raw = yaml.safe_load(f) or {}
     return _merge(DEFAULTS, raw)
@@ -108,7 +113,7 @@ class VectorDBConfig:
 class EmbeddingConfig:
     model: str = DEFAULTS["embedding"]["model"]
     dimension: int = 384
-    device: str = "tpu"
+    device: str = "gpu"
 
     @classmethod
     def from_config(cls, cfg: Dict[str, Any]) -> "EmbeddingConfig":

@@ -104,9 +104,9 @@ def embedding_like(
     L2-normalized (matches MiniLM-style embedding geometry).
 
     ``device="auto"`` generates on the accelerator when one is attached
-    and the corpus is large: ~830M gaussians + a 98-GFLOP mix matmul
-    take >1h on a throttled 1-core session host in numpy but seconds on
-    the MXU (the device→host pull dominates, streamed in row chunks).
+    and the corpus is large: ~830M gaussians + a 98-GFLOP mix matmul are
+    slow in numpy on one core (the device→host pull is streamed in row
+    chunks).
     The numpy and device corpora are statistically identical but not
     bit-identical — a corpus cache must never mix the two (the wide1m
     cache regenerates GT/graph whenever the corpus file is rewritten).

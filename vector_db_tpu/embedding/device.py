@@ -1,6 +1,6 @@
-"""Device selection utilities — TPU-aware analog of the reference's torch
+"""Device selection utilities — the jax analog of the reference's torch
 device picker (src/vector_db/inference/device.py:17-106: auto -> cuda ->
-mps -> cpu). Here the accelerator hierarchy is auto -> tpu -> cpu, resolved
+mps -> cpu). Here the accelerator hierarchy is auto -> gpu -> cpu, resolved
 through jax.
 """
 
@@ -12,19 +12,20 @@ import jax
 
 
 def get_device(preference: str = "auto") -> str:
-    """Resolve a device string. preference: 'auto' | 'tpu' | 'cpu'
-    (case-insensitive, as the reference accepts 'CPU' in config.yaml:3)."""
+    """Resolve a device string. preference: 'auto' | 'gpu' | 'cpu'
+    (case-insensitive, as the reference accepts 'CPU' in config.yaml:3).
+    'auto' names the platform JAX computes on; 'gpu' raises when JAX sees
+    no GPU, as ``runtime.apply_device`` does; anything else raises."""
     pref = (preference or "auto").lower()
     if pref == "cpu":
         return "cpu"
-    platforms = {d.platform for d in jax.devices()}
-    if pref in ("auto", "tpu"):
-        if "tpu" in platforms or any(p not in ("cpu",) for p in platforms):
-            # any non-cpu jax platform counts as the accelerator
-            non_cpu = [p for p in platforms if p != "cpu"]
-            return non_cpu[0] if non_cpu else "cpu"
-        return "cpu"
-    return pref if pref in platforms else "cpu"
+    if pref == "auto":
+        return jax.default_backend()
+    if pref == "gpu":
+        if not any(d.platform == "gpu" for d in jax.devices()):
+            raise RuntimeError("device 'gpu' requested but JAX sees no GPU")
+        return "gpu"
+    raise ValueError(f"unknown device {preference!r}; use auto, gpu or cpu")
 
 
 def is_accelerator_available() -> bool:

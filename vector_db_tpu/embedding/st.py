@@ -3,8 +3,9 @@
 Parity target: reference ``EmbeddingService``
 (src/vector_db/inference/embedding.py:8-52): wraps a SentenceTransformer,
 moves it to the selected device, exposes ``embed_text`` / ``embed_texts``
-returning numpy. torch runs CPU-side here — the TPU is reserved for the
-index engine; swap-in of a JAX-native encoder is a later optimization.
+returning numpy. torch runs CPU-side here — the GPU is reserved for the
+index engine's one JAX process; swap-in of a JAX-native encoder is a
+later optimization.
 """
 
 from __future__ import annotations
@@ -34,8 +35,8 @@ class SentenceTransformerEmbedder:
                 "embedder (model name 'fake-<dim>') or install the "
                 "'embedding' extra"
             )
-        # jax device names (tpu) are not torch devices; torch encodes on CPU
-        # unless an explicit torch device is passed.
+        # jax device names ("gpu") are not torch devices; torch encodes on
+        # CPU unless an explicit torch device is passed.
         torch_device = device if device in ("cpu", "cuda", "mps") else "cpu"
         self.model_name = model_name
         self.model = SentenceTransformer(model_name, device=torch_device)

@@ -1,4 +1,4 @@
-"""Host-facing HNSW index over the TPU kernels.
+"""Host-facing HNSW index over the device kernels.
 
 Parity target: reference ``HNSW`` (src/vector_db/indexing/hnsw.py:30-423):
 same constructor shape ``HNSW(M, ef_construction, rng, storage, index_file)``,
@@ -8,8 +8,8 @@ insert (hnsw.py:152-155), delete with entry re-election (hnsw.py:227-277),
 (hnsw.py:330-374), and graph-only persistence (embeddings stay in storage,
 hnsw.py:18-21, 376-423).
 
-TPU-first differences:
-- embeddings mirror into an HBM-resident f32[capacity, dim] table; all
+Accelerator-first differences:
+- embeddings mirror into a device-resident f32[capacity, dim] table; all
   traversal distance math happens on-device in batched form;
 - ``insert_nodes`` bulk-inserts: beam searches for the whole batch run
   vmapped in parallel against the pre-batch graph, then edges commit
@@ -49,11 +49,9 @@ MIN_CAPACITY = 256
 @partial(jax.jit, static_argnames=("m2",))
 def _pack_snapshot(nbr, upper_idx, entry, entry_level, m2: int):
     """One int32 vector = [entry, entry_level, level0-block, upper-block]
-    — the whole graph checkpoint crosses the relay in a SINGLE
-    device->host transfer (each jax.device_get pays ~1 s of relay round
-    trip regardless of size; four separate pulls cost more latency than
-    the bytes move). One compiled program per (capacity, upper-bucket, M)
-    combination, reused across flushes."""
+    — the whole graph checkpoint comes to the host in a SINGLE
+    device->host transfer instead of four. One compiled program per
+    (capacity, upper-bucket, M) combination, reused across flushes."""
     head = jnp.stack(
         [entry.astype(jnp.int32), entry_level.astype(jnp.int32)])
     return jnp.concatenate([
@@ -119,10 +117,9 @@ def _clustered_forward(
     O(n^1.5) matmul work instead of O(n^2); spill=2 keeps boundary recall.
 
     ``embeddings`` may be a DEVICE array (jnp): the pipeline then runs
-    without re-uploading the corpus — at 1M x 768 the redundant 3 GB H2D
-    through the relay was ~265 s, 4x the device compute of the whole
-    build (EXP_BUILD_PROFILE.json). ``return_device=True`` keeps the
-    edge tables on device for the device-side reverse merge.
+    without re-uploading the corpus (3 GB at 1M x 768).
+    ``return_device=True`` keeps the edge tables on device for the
+    device-side reverse merge.
     """
     import jax as _jax
 
@@ -250,8 +247,8 @@ class HNSW:
         # sequential step count is the insert bottleneck; the explored set
         # at equal ef_construction is a superset of best-first's)
         self.insert_expand = 4
-        # candidate generation for streaming inserts: "exact" (tiled MXU
-        # scan of the table — faster below ~10M rows AND exact) or "beam"
+        # candidate generation for streaming inserts: "exact" (tiled
+        # matmul scan of the table — exact) or "beam"
         # (reference-shaped per-item beam search)
         self.construction_mode = "exact"
 
@@ -351,15 +348,8 @@ class HNSW:
         if not nodes:
             return
         # storage first (reference hnsw.py:150). One batched call =
-        # one flush per memmap layer (save_many), not 2 msyncs/node —
-        # measured 213 vec/s -> the per-node flush dominated the whole
-        # service ingest at 100k (BENCH_TIERED r3).
-        save_many = getattr(self.storage, "save_many", None)
-        if save_many is not None:
-            save_many(list(nodes))
-        else:
-            for node in nodes:
-                self.storage.save(node)
+        # one flush per memmap layer (save_many), not 2 msyncs/node.
+        self.storage.save_many(list(nodes))
         # Idempotent insert (hnsw.py:152-155) — against the existing graph
         # AND within the batch: a duplicate id inside one batch would
         # otherwise allocate two slots for one id (ghost row after delete).
@@ -384,7 +374,7 @@ class HNSW:
         cand_factor: int = 4,
         alpha: float = 1.0,
     ) -> None:
-        """Bulk construction from exact k-NN tables computed on the MXU.
+        """Bulk construction from exact k-NN tables computed by matmuls.
 
         Instead of replaying the reference's sequential insert loop
         (hnsw.py:279-287 — one beam search per node), the whole corpus is
@@ -432,10 +422,8 @@ class HNSW:
         # neighbor table assembled ON DEVICE: per level only the (slots,
         # mapped-rows) pair crosses the host boundary (small above level
         # 0; level 0 at clustered scale never leaves the device at all).
-        # The old host-side assembly shipped the full [capacity, ncols]
-        # table once per build plus the level-0 edge tables both ways —
-        # at 1M x 768 those transfers and the host reverse-merge sort
-        # were ~2x the device compute (EXP_BUILD_PROFILE.json).
+        # A host-side assembly would ship the full [capacity, ncols]
+        # table once per build plus the level-0 edge tables both ways.
         nb_dev = jnp.full((self._capacity, ncols), -1, jnp.int32)
         levels_full = np.full((self._capacity,), -1, np.int32)
         levels_full[slots] = levels_np
@@ -605,8 +593,7 @@ class HNSW:
         if getattr(self, "_levels_host", None) is not None:
             self._levels_host[slots[:b]] = levels[:b]
 
-        # search + commit as ONE device program: on remote/tunneled
-        # backends each dispatch costs real latency, so fewer calls wins
+        # search + commit as ONE device program: one dispatch per batch
         if self.construction_mode == "exact":
             tile = min(self._capacity, 32768)  # capacities are powers of 2
             self.graph = K.insert_step_exact(
@@ -698,8 +685,8 @@ class HNSW:
         if self.graph is None or self.size == 0:
             raise ValueError("index must contain vectors before enable_rp")
         dims = int(min(dims, self._dim))
-        # device-side covariance: only [dim, dim] crosses the relay (a raw
-        # sample pull costs minutes at 1M — see _pca_proj)
+        # device-side covariance: only [dim, dim] comes to the host
+        # (see _pca_proj)
         self._rp_proj = self._pca_proj(dims)
         self._rp_src = None  # force mirror rebuild
 
@@ -765,9 +752,8 @@ class HNSW:
         """PCA projection [dim, dims] from the DEVICE-side covariance.
 
         The covariance ([dim, dim] ~ 2 MB) is the only thing that crosses
-        to host — pulling a raw sample did a ~400 MB device->host
-        transfer, which costs MINUTES through the relay (measured: 20 min
-        of a 1M enable_wide was exactly this)."""
+        to host, where a raw sample would be a ~400 MB device->host
+        transfer."""
         import jax as _jax
 
         @_jax.jit
@@ -795,9 +781,8 @@ class HNSW:
         search when the table or the graph changed.
 
         Default dims=120 keeps the augmented row (dims + 8) at exactly
-        128 lanes: a 136-wide bf16 mirror tiles at 1.9x padding on TPU,
-        which doubles every mirror-row gather and score matmul in the
-        hot loop (and the resident mirror itself)."""
+        128 elements, a power of two: 256-byte bf16 rows for the
+        mirror-row gathers and score matmuls in the hot loop."""
         if self.graph is None or self.size == 0:
             raise ValueError("index must contain vectors before enable_wide")
         if dims is None or dims >= self._dim:
@@ -866,7 +851,6 @@ class HNSW:
         score: str = "exact",
         dedup_window: int = 16,
         seen_mask: bool = True,
-        merge_kernel: bool = False,
         schedule=None,
         filter_ids=None,
         qchunk: int | None = None,
@@ -874,17 +858,14 @@ class HNSW:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Wide-beam search (requires enable_wide). Same contract as
         search_batch: (L2 dists f32[B, k], node ids int64[B, k]).
-        ``merge_kernel`` routes the per-step pool merge through the
-        Pallas bitonic kernel (exact top-P, fused payload permutation).
         ``schedule`` = ((F1, T1), (F2, T2), ...) overrides the fixed
         frontier/steps with a per-segment frontier width (wide early,
         narrow late — see wide_beam.wide_search).
         ``qchunk`` splits the query batch into host-side chunks of that
-        size: wide frontiers gather [B, F*M, dims] candidate blocks, and
-        at F >= 320 a 1k-query batch overflows HBM at 1M x 768
-        (measured: 16.1 G needed of 15.75 G). Default None auto-chunks
-        to keep max_frontier * chunk within the measured envelope
-        (F=224 x 1024 fits, F=320 x 1024 does not); 0 disables.
+        size: wide frontiers gather [B, F*M, dims] candidate blocks, whose
+        temporaries grow with max_frontier * chunk (about 16 GB at F=320,
+        B=1024, 1M x 768). Default None auto-chunks to keep
+        max_frontier * chunk <= 224 * 1024; 0 disables.
         ``filter_ids`` applies the reference's filter contract
         (hnsw.py:81-88): non-matching nodes navigate but never enter
         results (two-pool wide-beam; widen ``rerank_k``/``ef`` for very
@@ -894,8 +875,7 @@ class HNSW:
         mirror (requires enable_pq too) — the HNSW-over-PQ hybrid with
         wide-beam mechanics; final distances are exact either way.
         ``seen_mask=False`` drops the pre-merge pool-membership compare
-        (the window dedup still kills duplicates): the measured 1M
-        pareto (EXP_WIDE.json) — ~25% faster at <=0.5 recall points."""
+        (the window dedup still kills duplicates)."""
         from vector_db_tpu.index import wide_beam as WB
 
         if not hasattr(self, "_wb_n_seeds"):
@@ -908,8 +888,7 @@ class HNSW:
             return (np.full((b_orig, k), np.inf, np.float32),
                     np.full((b_orig, k), -1, np.int64))
         if qchunk is None:
-            # auto: bound max_frontier * padded_chunk by the measured
-            # HBM envelope (224*1024 fits; 320*1024 OOMs at 1M x 768)
+            # auto: bound max_frontier * padded_chunk by 224*1024
             fmax = frontier or max(16, min(((ef // 6 + 31) // 32) * 32,
                                            ef))
             if schedule is not None:
@@ -929,9 +908,8 @@ class HNSW:
                     queries[s:s + qchunk], k=k, ef=ef, frontier=frontier,
                     steps=steps, rerank_k=rerank_k, bucket=bucket,
                     score=score, dedup_window=dedup_window,
-                    seen_mask=seen_mask, merge_kernel=merge_kernel,
-                    schedule=schedule, filter_ids=filter_ids,
-                    early_exit=early_exit)
+                    seen_mask=seen_mask, schedule=schedule,
+                    filter_ids=filter_ids, early_exit=early_exit)
                 for s in range(0, b_orig, qchunk)
             ]
             return (np.concatenate([p[0] for p in parts]),
@@ -948,8 +926,8 @@ class HNSW:
                 queries = np.concatenate(
                     [queries,
                      np.zeros((b_pad, queries.shape[1]), np.float32)])
-        # auto (frontier/steps = 0): the measured 1M pareto shape —
-        # frontier ~ ef/6 (32-aligned), 10 steps (EXP_WIDE.json)
+        # auto (frontier/steps = 0): frontier ~ ef/6 (32-aligned),
+        # 10 steps
         if not frontier:
             frontier = max(16, min(((ef // 6 + 31) // 32) * 32, ef))
         if not steps:
@@ -966,7 +944,7 @@ class HNSW:
                        if score == "exact" else None)
         # mirror-row scoring: cap the per-step [B, F*W, dpa] gather temp
         # at ~2M rows (one-shot at B=1024, F=256 is a 4 GB padded gather
-        # + f32 convert — OOMed 16G HBM at 1M x 768)
+        # + f32 convert)
         score_chunks = 1
         seg_fs = ([f for f, _ in schedule] if schedule else [frontier])
         f_max = max(seg_fs)
@@ -984,7 +962,6 @@ class HNSW:
             ef=ef, F=frontier, T=steps, k=k, rerank_k=rerank_k,
             dedup_window=dedup_window, seen_mask=seen_mask,
             inline_tabs=inline_tabs, score_chunks=score_chunks,
-            merge_kernel=merge_kernel,
             schedule=(tuple(tuple(map(int, s)) for s in schedule)
                       if schedule else None),
             res_mask=res_mask,
@@ -1067,13 +1044,12 @@ class HNSW:
         filter_ids=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Exact/bf16 corpus scan over THIS index's device table — no
-        graph traversal. The measured 1M reality (README): batched scans
-        amortize every HBM byte over the whole query batch, so at large
-        B a scan beats any per-query traversal at >=0.95 recall. Serving
+        graph traversal. Batched scans amortize every byte read over the
+        whole query batch, where a traversal reads per query. Serving
         one HNSW index can therefore pick per request: wide-beam for
         latency, this scan for batch throughput — same table, no second
-        index. ``mode``: "bf16" (hardware top-k + exact rescore, recall
-        ~0.996 at 1M x 768) or "exact" (f32 HIGHEST, recall 1.0).
+        index. ``mode``: "bf16" (approximate top-k + exact rescore) or
+        "exact" (f32 HIGHEST, recall 1.0).
         ``mode="blocksel"`` runs the two-phase block-min scan
         (ops.exact.block_select_search): bf16 streaming block minima +
         exact block rerank — lossless w.r.t. phase-1 scores at
@@ -1090,7 +1066,7 @@ class HNSW:
             return (np.full((b_orig, k), np.inf, np.float32),
                     np.full((b_orig, k), -1, np.int64))
         # pow2-bucket B and k: each distinct (shape, static) combination
-        # is a multi-minute cold compile through the relay (CLAUDE.md)
+        # is a cold compile
         def up2(v: int, lo: int = 8) -> int:
             return max(lo, 1 << (int(v) - 1).bit_length())
 
@@ -1259,8 +1235,7 @@ class HNSW:
         ``bucket=True`` (default) rounds the compile-relevant shapes — query
         batch B, ef, k — up to power-of-two buckets and slices the result,
         so a service sees a handful of kernel compiles instead of one per
-        distinct request shape (cold XLA compiles can cost minutes on
-        remote TPU backends). Semantics are unaffected: a larger ef only
+        distinct request shape. Semantics are unaffected: a larger ef only
         improves recall, and padded queries/columns are discarded.
         """
         queries = np.asarray(queries, np.float32)
@@ -1338,10 +1313,9 @@ class HNSW:
         (possibly deferred) checkpoint write. The device->host pull
         happens HERE, on the calling thread: device arrays are immutable
         jnp values so holding refs would be a valid snapshot, but pulling
-        them from the background flush worker means two threads talk to
-        the device at once, which wedges the remote-relay client (both
-        threads futex-wait forever — measured, not theoretical). The
-        caller pays the pull; the flush worker only writes the npz."""
+        them from the background flush worker would have two threads
+        drive the device at once. The caller pays the pull; the flush
+        worker only writes the npz."""
         if self.index_file is None or self.graph is None:
             return None
         # split adjacency checkpoint: only ~1/M of nodes have any
@@ -1349,7 +1323,7 @@ class HNSW:
         # ~70% -1 padding. Pulling/writing the level-0 block for every
         # row plus a gathered upper block for just the multi-level slots
         # cuts checkpoint bytes ~3x — this is the per-flush cost on the
-        # post-threshold ingest path, where the relay moves ~30 MB/s.
+        # post-threshold ingest path.
         # levels are sampled host-side at every insert (and -1'd on
         # delete), so the host mirror is authoritative — no pull needed
         levels_np = getattr(self, "_levels_host", None)

@@ -1,16 +1,17 @@
 """Device-side HNSW kernels: batched beam search over fixed-degree tables.
 
-TPU-native re-design of the reference HNSW (src/vector_db/indexing/hnsw.py).
+Accelerator-native re-design of the reference HNSW
+(src/vector_db/indexing/hnsw.py).
 The reference stores the graph as ``Dict[id, InternalNode{neighbors:
 Dict[level, List[id]]}]`` and traverses it with Python heapqs, calling a
 per-pair NumPy distance once per edge (hnsw.py:89-134). Here:
 
-- the graph is one ``int32[capacity, NCOLS]`` neighbor table in HBM, -1
+- the graph is one ``int32[capacity, NCOLS]`` device neighbor table, -1
   padded: level-0 edges occupy columns [0, 2M) (M_max0 = 2M,
   hnsw.py:48-50), level-l >= 1 edges occupy columns [M(l+1), M(l+2));
 - search is a fixed-shape best-first beam under ``lax.while_loop``: each
   step expands the nearest unexpanded candidate, gathers its <=2M neighbor
-  rows, computes all edge distances in one (2M, d) contraction on the MXU,
+  rows, computes all edge distances in one (2M, d) contraction,
   and merges into the candidate/result pools with ``lax.top_k``;
 - the visited set is a packed int32 bitmap (capacity/32 words) carried
   through the loop;
@@ -313,8 +314,8 @@ def beam_layer_unified(
     case): one ef-wide pool holds the best visited nodes with per-entry
     expanded flags — the hnswlib formulation. Equivalent to the two-pool
     version when no result mask exists (results = top-ef visited), but does
-    ONE top-k merge per step instead of two, which is the measured
-    bottleneck of the loop. Returns (res_d f32[ef], res_s int32[ef]),
+    ONE top-k merge per step instead of two — the merges bound the
+    loop. Returns (res_d f32[ef], res_s int32[ef]),
     BIG/-1 padded, unsorted.
     """
     words = (capacity + 31) // 32
@@ -665,11 +666,11 @@ def construction_candidates_exact(
     ef_upper: int,
     tile: int,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Exact construction candidates via one tiled MXU scan.
+    """Exact construction candidates via one tiled matmul scan.
 
     The reference finds insert candidates with a per-level beam search of
-    width ef_construction (hnsw.py:174-184). On TPU a batched exact scan
-    is 50-100x faster than pointer-chasing at <=10M rows AND returns the
+    width ef_construction (hnsw.py:174-184). A batched exact scan replaces
+    the pointer-chasing AND returns the
     true top-ef_construction — a strict superset in quality of what any
     beam finds, so graph quality can only improve. One pass over the table
     maintains a running top-k per level (level-l candidates are nodes with
@@ -866,7 +867,7 @@ def commit_inserts_grouped(
     """Batch-parallel edge commit, equivalent to :func:`commit_inserts`.
 
     The sequential loop (reference hnsw.py:186-221 one node at a time) is
-    latency-bound on TPU: B tiny dependent steps. This version commits the
+    latency-bound on a device: B tiny dependent steps. This version commits the
     whole batch in O(l_max) big ops by exploiting two identities:
 
     1. item i's neighbor selection depends only on the pre-batch search
@@ -1012,7 +1013,7 @@ def insert_step(
     fori_loop (:func:`commit_inserts`) for comparison/property tests.
 
     ``expand`` > 1 pops that many beam candidates per construction-search
-    step (see beam_layer_unified) — the sequential step count, the measured
+    step (see beam_layer_unified) — the sequential step count, the
     insert bottleneck, drops ~expand-fold; the explored set is a superset
     of best-first's at equal ef_construction."""
     cd, cs = construction_search(
@@ -1052,9 +1053,9 @@ def insert_step_exact(
     tile: int,
     commit: str = "grouped",
 ) -> Graph:
-    """Fused streaming insert with EXACT candidates: one tiled MXU scan of
-    the table replaces the per-item construction beam (50-100x faster at
-    these scales and strictly better candidates; see
+    """Fused streaming insert with EXACT candidates: one tiled matmul scan
+    of the table replaces the per-item construction beam (strictly better
+    candidates; see
     construction_candidates_exact), then the batch-parallel edge commit.
     One compiled program per batch."""
     cd, cs = construction_candidates_exact(

@@ -1,12 +1,10 @@
-"""Wide-beam HNSW search: frontier-parallel graph traversal, TPU-shaped.
+"""Wide-beam HNSW search: frontier-parallel graph traversal.
 
 Replaces the reference's best-first ``_search_layer`` hot loop
 (reference src/vector_db/indexing/hnsw.py:89-134) for unfiltered queries.
 The classic formulation pops ONE candidate per step and re-sorts an
-ef-wide pool each hop — measured on TPU (round 2) the per-hop
-``lax.top_k`` merges and while_loop overhead bound throughput at 34 QPS
-for ef=1200 at 1M x 768, with gather traffic irrelevant (the RP-mirror
-experiment cut it 12x with zero QPS change).
+ef-wide pool each hop, so the per-hop ``lax.top_k`` merges and the
+while_loop's sequential steps bound throughput, not gather traffic.
 
 Wide-beam restructures the loop around what the hardware is good at:
 
@@ -129,16 +127,15 @@ def build_inline_tables(
     has_emb: jnp.ndarray,      # bool[capacity]
     proj: jnp.ndarray | None,  # f32[dim, dp] or None
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Inline neighbor replication (the CAGRA/DiskANN layout, TPU-tuned):
+    """Inline neighbor replication (the CAGRA/DiskANN layout):
     every node stores its W neighbors' int8-quantized mirror rows as ONE
     contiguous [W, dp] block, plus a [W, 2] f32 aux row (dequant scale,
     full-space norm).
 
-    Why: HBM row gathers are ISSUE-bound on this hardware (measured 22-92
-    Mrows/s regardless of row size, 6-25 GB/s on 272 B rows) — the
-    per-candidate gather of F·W mirror rows dominates the wide-beam step.
-    One inline block per FRONTIER node replaces W row-gathers with one
-    4 KB block-gather (measured 155 GB/s), a ~W× cut in gather issues.
+    Why: small-row gathers are bound by the number of gathers issued, not
+    by bytes — the per-candidate gather of F·W mirror rows dominates the
+    wide-beam step. One inline block per FRONTIER node replaces W
+    row-gathers with one 4 KB block-gather, a ~W× cut in gather issues.
 
     Cost: capacity·W·dp bytes (4 GB at 1M, W=32, dp=128) — a query-time
     acceleration structure rebuilt from the graph + table, never
@@ -207,13 +204,12 @@ def beam_search(
 
     :func:`wide_search` keeps an ef-wide best-so-far pool and pays three
     selection passes per step over it (pop ``approx_min_k`` over P, merge
-    over P+K, and the pool permutation gather) — measured ~65% of the
-    step at 1M (EXP_WIDE_PROFILE.json). This variant removes the pool
-    from the loop entirely:
+    over P+K, and the pool permutation gather). This variant removes the
+    pool from the loop entirely:
 
     - the next frontier is the top-F of THIS step's K=F·W candidate
-      scores — one partial-reduce at a 16x reduction ratio (where the
-      PartialReduce hardware is efficient) and one [B, F] gather, instead
+      scores — one partial-reduce at a 16x reduction ratio and one
+      [B, F] gather, instead
       of three pool-wide passes;
     - every step's frontier (scores + slots) is EMITTED through the scan's
       stacked outputs — no running merge; one deferred ``approx_min_k``
@@ -345,8 +341,8 @@ def beam_search(
 @functools.partial(
     jax.jit,
     static_argnames=("ef", "F", "T", "k", "rerank_k", "dedup_window",
-                     "seen_mask", "score_chunks", "merge_kernel",
-                     "schedule", "early_exit"),
+                     "seen_mask", "score_chunks", "schedule",
+                     "early_exit"),
 )
 def wide_search(
     neighbors0: jnp.ndarray,   # int32[capacity, W] level-0 adjacency
@@ -365,7 +361,6 @@ def wide_search(
     seen_mask: bool = True,
     inline_tabs: Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray] | None = None,
     score_chunks: int = 1,
-    merge_kernel: bool = False,
     schedule: Tuple[Tuple[int, int], ...] | None = None,
     res_mask: jnp.ndarray | None = None,
     early_exit: bool = False,
@@ -379,11 +374,6 @@ def wide_search(
     node — W× fewer gather issues on issue-bound HBM gathers.
     ``seen_mask`` toggles the pre-merge pool-membership mask (the [K, P]
     broadcast compare); the post-merge window dedup stays either way.
-    ``merge_kernel`` routes the per-step pool merge through the Pallas
-    bitonic sort-by-key kernel (ops/pallas/bitonic_merge.py): EXACT
-    top-P in VMEM with the packed payload riding the exchanges — one
-    fused pass instead of approx_min_k + an issue-bound permutation
-    gather.
     ``schedule`` replaces the fixed (F, T) loop with segments
     ``((F1, T1), (F2, T2), ...)``: T1 steps at frontier F1, then T2 at
     F2, ... — early steps explore wide, later steps refine narrow, so
@@ -435,9 +425,9 @@ def wide_search(
     # identically) and the rerank reports exact f32.
     pool_d = pool_d.astype(jnp.bfloat16)
     # (slot, expanded) PACKED into one int32 (slot*2 | e): the merge's
-    # pool permutation then needs ONE take_along_axis instead of two —
-    # measured 41% of the whole step at 1M (the taa gathers are
-    # issue-bound like every other gather). slot -1 packs to -2;
+    # pool permutation then needs ONE take_along_axis instead of two
+    # (the taa gathers are issue-bound like every other gather). slot -1
+    # packs to -2;
     # arithmetic >> 1 unpacks both signs correctly.
     pool_se = pool_s0 * 2
 
@@ -449,9 +439,9 @@ def wide_search(
         res_s = jnp.where(res_d < BIG_THRESH, res_s, -1)
 
     if inline_tabs is not None:
-        # int8 query mirror: int8 x int8 lands natively on the MXU and
-        # skips the [B, K, dp] bf16 cast materialization (measured 24% of
-        # the step). Selection-only noise; rerank is exact. The inline
+        # int8 query mirror: an int8 x int8 contraction skips the
+        # [B, K, dp] bf16 cast materialization. Selection-only noise;
+        # rerank is exact. The inline
         # table is lane-padded to a 128 multiple; columns at/after the
         # aug xsq position (dpa-8) are not mirror data — zero them so the
         # query's [.., 1, 0..] tail neither skews q_scale nor scores
@@ -573,26 +563,8 @@ def wide_search(
         cat_d = jnp.concatenate([pool_d, d_new.astype(pool_d.dtype)],
                                 axis=1)
         cat_se = jnp.concatenate([pool_se, cand * 2], axis=1)
-        if merge_kernel:
-            from vector_db_tpu.ops.pallas.bitonic_merge import sorted_topk
-
-            nbit = 1 << (cat_d.shape[1] - 1).bit_length()
-            pool_d, pool_se = sorted_topk(
-                cat_d, cat_se, P, block_b=32 if nbit > 4096 else 64,
-                # trace-time constant: Mosaic on the device, interpret
-                # everywhere else (CPU tests)
-                interpret=jax.default_backend() == "cpu",
-                # the suffix-only merge network requires the pool prefix
-                # non-decreasing at entry. That holds only with the
-                # window dedup OFF: the dedup voids duplicate entries to
-                # BIG IN PLACE, and "ascending with BIG bumps" is not
-                # bitonic (restoring it is 0/1 stable compaction, which
-                # needs a full sorting network) — so dedup_window > 0
-                # must take the full-sort path
-                presorted=P if dedup_window == 0 else 0)
-        else:
-            pool_d, mi = jax.lax.approx_min_k(cat_d, P)
-            pool_se = jnp.take_along_axis(cat_se, mi, axis=1)
+        pool_d, mi = jax.lax.approx_min_k(cat_d, P)
+        pool_se = jnp.take_along_axis(cat_se, mi, axis=1)
         pool_se = jnp.where(pool_d < BIG_THRESH, pool_se, -2)
 
         # Duplicate kill: a slot re-entering the merge (multi-path within

@@ -1,11 +1,12 @@
 """Batched distance kernels.
 
-TPU-native replacement for the reference's per-pair
+Accelerator-native replacement for the reference's per-pair
 ``euclidean_vector_distance`` (src/vector_db/util/distance.py:3-4), which the
 reference calls once per graph edge inside Python loops
 (src/vector_db/indexing/hnsw.py:102-131). Here every distance computation is
 a batched matmul expansion ``||q - x||² = ||q||² - 2 q·x + ||x||²`` so the
-FLOPs land on the MXU and elementwise terms fuse into the matmul epilogue.
+FLOPs land on the matrix units and elementwise terms fuse into the matmul
+epilogue.
 
 All distances are SQUARED L2 internally (monotone in L2, so rankings match);
 take ``sqrt`` only at the host-facing edge for reference-parity distance
@@ -20,7 +21,7 @@ import numpy as np
 # Sentinel "infinite" distance for masked entries. A numpy scalar, NOT a
 # jnp array: module import must never initialize the JAX backend (services
 # pin the platform from config AFTER import; a device allocation here would
-# grab the TPU on import and race concurrent processes for it).
+# grab the GPU on import and race concurrent processes for it).
 BIG = np.float32(3.0e38)
 
 
@@ -44,14 +45,14 @@ def l2_sq_pairwise(
 
     ``x_sq`` (precomputed row norms of ``x``) is an optional cache — the
     corpus norms are computed once at ingest and reused per query batch.
-    The ``q·xᵀ`` term is a single MXU matmul.
+    The ``q·xᵀ`` term is a single matmul.
 
-    ``precision``: TPU matmuls at DEFAULT precision truncate f32 inputs
-    to bf16 for the multiply; on unnormalized corpora (‖x‖² ≫ neighbor
-    gaps, e.g. SIFT) that noise exceeds the gaps and "exact" results are
-    only ~80% correct vs float64 (measured). Query-facing exact paths
-    pass ``jax.lax.Precision.HIGHEST`` (f32-accurate multi-pass);
-    throughput-critical build internals keep DEFAULT.
+    ``precision``: at DEFAULT precision an f32 matmul may multiply in
+    reduced precision (TF32 on the GPU); on unnormalized corpora
+    (‖x‖² ≫ neighbor gaps, e.g. SIFT) that noise exceeds the gaps and
+    "exact" results misrank. Query-facing exact paths pass
+    ``jax.lax.Precision.HIGHEST`` (f32-accurate); throughput-critical
+    build internals keep DEFAULT.
     """
     if x_sq is None:
         x_sq = squared_norms(x)
@@ -85,13 +86,12 @@ def gather_l2_sq(
     valid: bool[K]. Returns f32[K] with BIG where invalid.
 
     This is the HNSW neighbor-expansion primitive: gather K embedding rows
-    from HBM, one (K, d) · (d,) contraction, mask.
+    from device memory, one (K, d) · (d,) contraction, mask.
 
     ``precision`` defaults to HIGHEST — this is also the exact-rerank
-    primitive, and TPU DEFAULT-precision matvecs truncate to bf16 and
-    misrank unnormalized corpora. Hot traversal/construction loops that
-    only SELECT candidates (a rerank follows) pass ``None`` (DEFAULT):
-    the 6-pass multiply measurably slowed 1M graph builds 2.7x.
+    primitive, and reduced-precision DEFAULT matvecs misrank
+    unnormalized corpora. Hot traversal/construction loops that only
+    SELECT candidates (a rerank follows) pass ``None`` (DEFAULT).
     """
     import jax
 

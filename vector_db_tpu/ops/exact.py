@@ -1,7 +1,7 @@
 """Exact (brute-force) k-NN search as fused matmul + top-k.
 
 This is the recall ground-truth path and the "flat index" the reference
-lacks. One MXU matmul scores a whole query batch against the corpus; for
+lacks. One matmul scores a whole query batch against the corpus; for
 corpora too large for a single product matrix, the corpus is tiled with
 ``lax.scan`` and per-tile top-k results are merged (running top-k), so HBM
 traffic is one streaming pass over the embedding table.
@@ -74,9 +74,10 @@ def exact_search_tiled(
     def body(carry, xs):
         best_d, best_i = carry
         tile_emb, tile_valid, tile_xsq, tile_idx = xs
-        # HIGHEST: this is the recall-1.0 contract path; TPU DEFAULT
-        # precision truncates f32 multiplies to bf16 and returns only
-        # ~80%-correct "exact" results on unnormalized corpora
+        # HIGHEST: this is the recall-1.0 contract path; DEFAULT
+        # precision may run f32 products in reduced precision (TF32 on
+        # the GPU) and return wrong "exact" results on unnormalized
+        # corpora
         d = l2_sq_pairwise(queries, tile_emb, x_sq=tile_xsq,
                            precision=jax.lax.Precision.HIGHEST)
         d = jnp.where(tile_valid[None, :], d, BIG)
@@ -102,20 +103,18 @@ def approx_search_tiled(
     x_sq: jnp.ndarray | None = None,
     recall_target: float = 0.95,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """Top-k by squared L2 with TPU-native approximate per-tile reduction.
+    """Top-k by squared L2 with an approximate per-tile reduction.
 
     Same contract as :func:`exact_search_tiled`, two performance levers:
 
-    - ``emb`` may be **bfloat16** (cast once at ingest): halves HBM traffic
-      and quadruples MXU rate; the cross term still accumulates in f32.
-      Pass ``x_sq`` computed from the f32 source for exact norms.
-    - per-tile top-k uses ``lax.approx_min_k`` (the TPU PartialReduce
-      hardware reduction) instead of a full sort — ~2.5x end-to-end at 1M.
+    - ``emb`` may be **bfloat16** (cast once at ingest): halves the bytes
+      read and runs the product on bf16 tensor cores; the cross term still
+      accumulates in f32. Pass ``x_sq`` computed from the f32 source for
+      exact norms.
+    - per-tile top-k uses ``lax.approx_min_k`` instead of a full sort.
 
-    Measured on 1M x 768-d, B=1000, k=10 vs exact-f32 ground truth (v5e):
-    bf16 + tile 125k -> ~28k QPS at recall@10 = 0.998 (exact-f32 scan with
-    full sorts: ~9k QPS). The returned distances of surviving candidates
-    are bf16-accurate; callers needing exact distances re-score the k rows.
+    The returned distances of surviving candidates are bf16-accurate;
+    callers needing exact distances re-score the k rows.
     """
     n, dim = emb.shape
     b = queries.shape[0]
@@ -167,10 +166,6 @@ def approx_search_tiled(
 BIG_THRESH_LOCAL = np.float32(1.0e37)  # numpy scalar: no device alloc at import
 
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
 @partial(jax.jit, static_argnames=("k", "tile", "block", "blocks_k",
                                    "qblock", "exact_phase1",
                                    "approx_blocks", "hilo_phase1"))
@@ -195,10 +190,9 @@ def block_select_search(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Two-phase scan: streaming block-min select, then exact block rerank.
 
-    The tiled scans above are EXTRACTION-bound: a top-k (or approx_min_k)
-    over every [B, tile] score block costs more than the scoring matmul
-    itself (measured round 2: recall-1.0 projected scan 2.8-6.7k QPS vs
-    raw matmul ceiling ~100k). This path exploits a selection identity:
+    The tiled scans above pay a top-k (or approx_min_k) over every
+    [B, tile] score block on top of the scoring matmul. This path exploits
+    a selection identity:
 
       phase 1: one streaming pass computes only the MIN of every
         ``block`` consecutive rows — [B, N/block] minima, a reduction
@@ -222,11 +216,9 @@ def block_select_search(
     Block selection is EXACT ``lax.top_k`` by default: the minima tensor
     is N/block wide (128x smaller than the row space), so the full sort
     is off the critical path, and approximate selection here silently
-    voids the losslessness guarantee (measured at 1M x 768: recall
-    0.9914 with ``approx_min_k``'s default 0.95 target vs 1.0 exact —
-    the round-2 "blocksel_exact" rows carried exactly that miss).
-    ``approx_blocks=True`` restores the hardware partial-reduce for
-    callers that prefer the extra QPS over the guarantee.
+    voids the losslessness guarantee. ``approx_blocks=True`` selects
+    blocks with ``approx_min_k`` for callers that trade the guarantee
+    for speed.
 
     Returns (d_sq f32[B, k], ids int32[B, k]) ascending, (BIG, -1) padded.
     """
@@ -333,10 +325,21 @@ def block_select_search(
     return (dd.reshape(-1, k)[:b], ii.reshape(-1, k)[:b])
 
 
-@partial(jax.jit, static_argnames=("k", "tile", "block", "blocks_k",
-                                   "rows_k", "approx_blocks",
-                                   "pallas_phase1", "p1_tile", "p1_qtile",
-                                   "p2_chunk"))
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _pad_to(a: jnp.ndarray, rows: int) -> jnp.ndarray:
+    """``a`` zero-extended along axis 0 to ``rows`` (a no-op when it has
+    them already)."""
+    pad = rows - a.shape[0]
+    if not pad:
+        return a
+    return jnp.concatenate([a, jnp.zeros((pad,) + a.shape[1:], a.dtype)])
+
+
+@partial(jax.jit, static_argnames=("k", "block", "blocks_k", "rows_k",
+                                   "approx_blocks", "p2_chunk"))
 def block_select_search_3p(
     queries: jnp.ndarray,    # f32[B, dim]
     score_tab: jnp.ndarray,  # bf16[N, ds] phase-1/2 table (PCA mirror)
@@ -345,90 +348,60 @@ def block_select_search_3p(
     emb: jnp.ndarray,        # f32[N, dim] exact rerank table
     valid: jnp.ndarray,      # bool[N]
     k: int,
-    tile: int = 131072,
     block: int = 128,
     blocks_k: int = 0,
     rows_k: int = 0,
     approx_blocks: bool = False,
-    pallas_phase1: bool = False,
-    p1_tile: int = 4096,
-    p1_qtile: int = 512,
     p2_chunk: int = 0,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Three-phase block-min scan: select blocks, rescore rows in the
     projected mirror, exact-rescore only the top ``rows_k`` rows.
 
-    ``pallas_phase1`` routes phase 1 through the fused VMEM block-min
-    kernel (ops/pallas/block_min.py): the [B, tile] distance panel never
-    reaches HBM — measured at 1M x 768 the XLA phase 1's panel roundtrip
-    dominates the whole search.
+    Phase 1 is the block top-m scan (ops/pallas/block_topm.py) at m=1:
+    block minima are its first pass.
 
-    The two-phase :func:`block_select_search` is phase-2 bound at 1M x
-    768 (measured: QPS falls from 11.8k to 7.6k as blocks_k goes 10->40
-    while the phase-1 table makes no difference): gathering
-    ``[B, blocks_k, block, dim]`` f32 rows moves ~16 GB/batch and the
-    per-query HIGHEST matvec can't use the MXU. Here phase 2 rescoring
-    runs in the ``ds``-dim bf16 mirror (dim*4/(ds*2)x less gather
-    traffic), producing per-ROW estimates whose top ``rows_k`` rows per
-    query are then fetched from the f32 table (``rows_k`` row reads per
-    query) and scored exactly — the same estimate->exact contract as the
-    wide-beam rerank. Recall is 1.0 as long as the true top-k survive
-    the mirror-scored cut; ``rows_k`` (default ``8*k``) is the margin.
+    The two-phase :func:`block_select_search` gathers
+    ``[B, blocks_k, block, dim]`` f32 rows and runs a per-query HIGHEST
+    matvec. Here phase 2 rescoring runs in the ``ds``-dim bf16 mirror
+    (dim*4/(ds*2)x less gather traffic), producing per-ROW estimates whose
+    top ``rows_k`` rows per query are then fetched from the f32 table
+    (``rows_k`` row reads per query) and scored exactly — the same
+    estimate->exact contract as the wide-beam rerank. Recall is 1.0 as
+    long as the true top-k survive the mirror-scored cut; ``rows_k``
+    (default ``8*k``) is the margin.
 
     Returns (d_sq f32[B, k], ids int32[B, k]) ascending, (BIG, -1) pad.
     """
-    n, dim = emb.shape
+    from vector_db_tpu.ops.pallas.block_topm import block_topm_scan
+
     b = queries.shape[0]
     ds = score_tab.shape[1]
     blocks_k = blocks_k or 2 * k
     rows_k = rows_k or 8 * k
-    assert tile % block == 0
-    pad = (-n) % tile
-    if pad:
-        score_tab = jnp.concatenate(
-            [score_tab, jnp.zeros((pad, ds), score_tab.dtype)])
-        emb = jnp.concatenate([emb, jnp.zeros((pad, dim), emb.dtype)])
-        valid = jnp.concatenate([valid, jnp.zeros((pad,), bool)])
-        x_sq = jnp.concatenate([x_sq, jnp.zeros((pad,), x_sq.dtype)])
-    n_pad = emb.shape[0]
-    n_tiles = n_pad // tile
-    n_blocks = n_pad // block
+    # the mirror may carry padded rows (block_topm.pad_mirror): blocks
+    # span the mirror's rows, zero-extended to whole blocks; rows past the
+    # f32 table are invalid, and their clamped gathers are masked below
+    n_rows = _round_up(score_tab.shape[0], block)
+    score_tab = _pad_to(score_tab, n_rows)
+    valid = _pad_to(valid, n_rows)
+    x_sq = _pad_to(x_sq, n_rows)
+    n_blocks = n_rows // block
     blocks_k = min(blocks_k, n_blocks)
     rows_k = min(rows_k, blocks_k * block)
 
     sq = score_q.astype(score_tab.dtype)
 
     # phase 1: streaming block minima of the mirror estimate
-    if pallas_phase1:
-        from vector_db_tpu.ops.pallas.block_min import block_min_scan
-
-        xsq_eff = jnp.where(valid, x_sq, 2.0e38)
-        mins = block_min_scan(score_q, score_tab, xsq_eff, block=block,
-                              tile=min(p1_tile, n_pad),
-                              qtile=min(p1_qtile, _round_up(b, 128)))
-    else:
-        st_t = score_tab.reshape(n_tiles, tile, ds)
-        xsq_t = x_sq.reshape(n_tiles, tile)
-        valid_t = valid.reshape(n_tiles, tile)
-
-        def p1(_, xs):
-            t_tab, t_xsq, t_valid = xs
-            cross = jnp.dot(sq, t_tab.T,
-                            preferred_element_type=jnp.float32)
-            d = t_xsq[None, :] - 2.0 * cross
-            d = jnp.where(t_valid[None, :], d, BIG)
-            return None, jnp.min(
-                d.reshape(b, tile // block, block), axis=-1)
-
-        _, mins = jax.lax.scan(p1, None, (st_t, xsq_t, valid_t))
-        mins = jnp.moveaxis(mins, 0, 1).reshape(b, n_blocks)
+    mins, _ = block_topm_scan(score_q, score_tab,
+                              jnp.where(valid, x_sq, 2.0e38),
+                              block=block, m=1)
     if approx_blocks:
         _, bidx = jax.lax.approx_min_k(mins, blocks_k)
     else:
         _, bidx = jax.lax.top_k(-mins, blocks_k)         # [B, blocks_k]
 
     # phase 2: per-row mirror rescore of the selected blocks (bf16
-    # block-contiguous gather, MXU per-query matvec in ds dims only).
+    # block-contiguous gather, per-query matvec in ds dims only).
     # p2_chunk > 0 scans candidate-chunks of that many blocks per step:
     # the one-shot path materializes a [B, C, blk, ds] gather (plus
     # XLA's f32 convert of it) — chunking caps the live temp with no
@@ -465,7 +438,7 @@ def block_select_search_3p(
     cand = jnp.take_along_axis(row_ids, rpos, axis=1)    # [B, rows_k]
 
     # phase 3: exact rescore of rows_k rows per query, final top-k
-    crows = emb[cand]                                    # [B, rows_k, dim]
+    crows = emb[jnp.minimum(cand, emb.shape[0] - 1)]     # [B, rows_k, dim]
     d = (
         jnp.sum(crows * crows, axis=-1)
         - 2.0 * jnp.einsum("brd,bd->br", crows, queries,
@@ -482,8 +455,7 @@ def block_select_search_3p(
     return out_d, out_i
 
 
-@partial(jax.jit, static_argnames=("k", "block", "m", "rows_k",
-                                   "p1_tile", "p1_qtile"))
+@partial(jax.jit, static_argnames=("k", "block", "m", "rows_k"))
 def block_select_search_2p(
     queries: jnp.ndarray,    # f32[B, dim]
     score_tab: jnp.ndarray,  # bf16[N, ds] phase-1 mirror table
@@ -495,19 +467,14 @@ def block_select_search_2p(
     block: int = 128,
     m: int = 4,
     rows_k: int = 0,
-    p1_tile: int = 4096,
-    p1_qtile: int = 512,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Two-phase exact search: fused per-block top-m scan, exact rescore.
 
     Successor to :func:`block_select_search_3p` for the recall-1.0
-    serving path. The 3-phase pipeline spends most of its time OUTSIDE
-    the Pallas kernel — block selection, the [B, blocks_k, block, ds]
-    mirror gather, the per-row rescore, and a second top-k
-    (EXP_P1.json "stages": 31k -> 27k -> 15.5k per-call QPS as stages
-    accumulate). Here the kernel (ops/pallas/block_topm.py) emits the
-    ``m`` best mirror rows per 128-row block directly, so the pipeline
-    collapses to:
+    serving path, without its block selection, [B, blocks_k, block, ds]
+    mirror gather, per-row rescore and second top-k. The block top-m
+    scan (ops/pallas/block_topm.py) emits the ``m`` best mirror rows per
+    128-row block directly, so the pipeline collapses to:
 
       phase 1: streaming fused scan -> per-block top-m estimates
         (f32[B, N/block*m]) with global row ids;
@@ -520,8 +487,7 @@ def block_select_search_2p(
     mirror estimates overall — the same estimate->exact margin as the
     3-phase path's ``rows_k``, plus an in-block rank-m condition that
     only bites when >m true neighbors share one slot-order block
-    (slot order is uncorrelated with query neighborhoods; measured
-    recall 1.0 at 1M x 768 with m=4, rows_k=80 — EXP_2P.json).
+    (slot order is uncorrelated with query neighborhoods).
 
     Exactness semantics match the reference's recall-1.0 search contract
     (reference hnsw.py:89-134 / indexing flat scan) with exact final
@@ -531,15 +497,16 @@ def block_select_search_2p(
     """
     from vector_db_tpu.ops.pallas.block_topm import block_topm_scan
 
-    n, dim = emb.shape
-    b = queries.shape[0]
+    n = emb.shape[0]
     rows_k = rows_k or 8 * k
 
-    xsq_eff = jnp.where(valid, x_sq, 2.0e38)
-    est, rows = block_topm_scan(
-        score_q, score_tab, xsq_eff, block=block, m=m,
-        tile=min(p1_tile, _round_up(n, block)),
-        qtile=min(p1_qtile, _round_up(b, 128)))
+    # a padded mirror (block_topm.pad_mirror) has rows past the f32
+    # table: they are invalid
+    n_rows = score_tab.shape[0]
+    xsq_eff = jnp.where(_pad_to(valid, n_rows), _pad_to(x_sq, n_rows),
+                        2.0e38)
+    est, rows = block_topm_scan(score_q, score_tab, xsq_eff, block=block,
+                                m=m)
     rows_k = min(rows_k, est.shape[1])
 
     neg, pos = jax.lax.top_k(-est, rows_k)               # [B, rows_k]
@@ -608,7 +575,7 @@ def knn_exact(
     queries: f32[B, d] (rows OF the corpus); q_ids: int32[B] their slot ids;
     emb/valid: the corpus. Returns (dists_sq f32[B, k], slots int32[B, k]).
     This is the bulk-graph-construction primitive: one streaming pass of
-    MXU matmuls builds exact neighbor tables for a whole node batch.
+    matmuls builds exact neighbor tables for a whole node batch.
     """
     n, dim = emb.shape
     b = queries.shape[0]

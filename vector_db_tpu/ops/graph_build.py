@@ -193,7 +193,7 @@ def clustered_knn_merge(
     forward edges — ONE device program (lax.scan over clusters).
 
     Each scan step gathers one cluster's member embeddings, computes the
-    [Lmax, Lmax] distance block on the MXU, takes each member's deg nearest
+    [Lmax, Lmax] distance block as one matmul, takes each member's deg nearest
     within the cluster, and merges into the running [N, deg] tables with a
     gather + top-k + scatter (members are unique within a cluster, so the
     scatter is conflict-free). Points spilled into several clusters get the

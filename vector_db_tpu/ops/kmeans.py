@@ -1,6 +1,6 @@
-"""JAX k-means (Lloyd's algorithm) on the MXU.
+"""JAX k-means (Lloyd's algorithm) as matmuls.
 
-TPU-native replacement for the reference's two k-means call sites:
+Accelerator-native replacement for the reference's two k-means call sites:
 ``scipy.cluster.vq.kmeans2(k, iter=100, minit='points')`` in the IVF index
 (src/vector_db/indexing/ivf.py:75) and the per-subspace ProcessPoolExecutor
 fan-out in PQ training (src/vector_db/inference/pq.py:64-75). Semantics
@@ -9,7 +9,7 @@ iteration count, and empty clusters keep their previous centroid (kmeans2's
 default behaviour short of a warning).
 
 The E-step distance matrix is a batched matmul; the M-step is a one-hot
-matmul (``assign_onehotᵀ @ x``) so both steps run on the MXU. Subspace
+matmul (``assign_onehotᵀ @ x``) so both steps are matmuls. Subspace
 parallelism (PQ) is a ``vmap`` over this function — one compiled program
 replaces one OS process per subspace.
 """
@@ -80,7 +80,7 @@ def assign_tiled(
     x: f32[N, d]; centroids: f32[k, d]. Returns int32[N, n_cand] — each
     row's ``n_cand`` nearest centroids, best first. This is the scalable
     complement to :func:`kmeans`: train on a subsample, then assign the
-    full corpus with one streaming pass of MXU matmuls (the E-step only).
+    full corpus with one streaming pass of matmuls (the E-step only).
     """
     n, dim = x.shape
     pad = (-n) % tile

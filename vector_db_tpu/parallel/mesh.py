@@ -5,8 +5,7 @@ index copies with no sharding (README.md:123-126, docker-compose.yml:48-50).
 Here scale-out is true sharding over a ``jax.sharding.Mesh``: the corpus
 (embedding table + neighbor tables + inverted lists) splits by row across
 the ``shard`` axis, per-shard search runs SPMD under ``shard_map``, and
-results merge with XLA collectives over ICI (``all_gather`` + top-k), not
-HTTP.
+results merge with XLA collectives (``all_gather`` + top-k), not HTTP.
 """
 
 from __future__ import annotations
@@ -41,14 +40,12 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def make_mesh_2d(n_slices: int, shards_per_slice: int,
                  devices: Optional[Sequence[jax.Device]] = None) -> Mesh:
-    """2-D mesh ("slice", "shard") for multi-slice (DCN) deployments.
+    """2-D mesh ("slice", "shard"): devices grouped into slices.
 
-    The inner ``shard`` axis maps to devices within one TPU slice (ICI);
-    the outer ``slice`` axis crosses slices over DCN. Collectives written
-    per-axis then ride the right fabric: sharded-search merges all_gather
-    over "shard" first (fast ICI, S_inner·B·k pairs) and only the per-slice
-    winners — B·k pairs — cross "slice"/DCN. On hosts this simulates with
-    virtual devices; on hardware pass the slice-ordered device list.
+    Sharded-search merges all_gather over the inner "shard" axis first
+    (S_inner·B·k pairs per slice) and then only the per-slice winners —
+    B·k pairs per slice — over the outer "slice" axis. On hosts this
+    runs on virtual devices; pass a slice-ordered device list otherwise.
     """
     if devices is None:
         devices = jax.devices()

@@ -1,10 +1,6 @@
 from vector_db_tpu.services.storage_service import StorageService
 from vector_db_tpu.services.indexing_service import IndexingService
 from vector_db_tpu.services.embedding_service import EmbeddingService
-from vector_db_tpu.services.embedding_client import (
-    EmbeddingClient,
-    SyncEmbeddingClient,
-)
 
 __all__ = [
     "StorageService",
@@ -13,3 +9,13 @@ __all__ = [
     "EmbeddingClient",
     "SyncEmbeddingClient",
 ]
+
+
+def __getattr__(name):
+    # the HTTP clients need httpx; import it only when a client is asked
+    # for, so the engine and services load without it
+    if name in ("EmbeddingClient", "SyncEmbeddingClient"):
+        from vector_db_tpu.services import embedding_client
+
+        return getattr(embedding_client, name)
+    raise AttributeError(name)

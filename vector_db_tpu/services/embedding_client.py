@@ -4,7 +4,8 @@ Parity target: reference ``EmbeddingClient`` / ``SyncEmbeddingClient``
 (src/vector_db/services/embedding_client.py:9-163): httpx async and sync
 clients for ``POST /embed``, ``POST /embed/batch``, ``GET /health`` —
 the inter-service transport at the user-facing edge. (Inside the engine,
-cross-device communication is XLA collectives over the ICI mesh, not HTTP.)
+cross-device communication is XLA collectives over the device mesh, not
+HTTP.)
 """
 
 from __future__ import annotations

@@ -18,12 +18,13 @@ import logging
 import random
 import threading
 from pathlib import Path
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from vector_db_tpu.config import load_config
 from vector_db_tpu.index.hnsw import HNSW
+from vector_db_tpu.index.ivf import DEFAULT_ADC, check_adc
 from vector_db_tpu.storage import MMapNodeStorage, NodeStorage
 from vector_db_tpu.types import Node
 
@@ -34,12 +35,13 @@ class IndexingService:
     def __init__(
         self,
         storage: NodeStorage,
-        config_path: str,
+        config_path: Union[str, Path, Mapping[str, Any]],
         index_file: Optional[str] = None,
     ) -> None:
+        """``config_path`` is a YAML file or an already-parsed config
+        mapping (merged over the defaults either way)."""
         self.storage = storage
-        self.config_path = Path(config_path)
-        config = load_config(self.config_path)
+        config = load_config(config_path)
         index_config = config.get("index", {})
         M = index_config.get("M", 16)
         ef_construction = index_config.get("ef_construction", 200)
@@ -74,9 +76,9 @@ class IndexingService:
         self._pq_opq_iters = int(pq_cfg.get("opq_iters", 0))
         # residual IVFADC is the recall-correct default for index.type: ivf
         self._pq_residual = bool(pq_cfg.get("residual", True))
-        # probe-mode LUT scoring formulation (IvfIndex.search_batch adc=):
-        # "onehot8" | "onehot" | "gather" | "pallas" (fused VMEM kernel)
-        self._pq_adc = str(pq_cfg.get("adc", "pallas"))
+        # probe-mode LUT scoring formulation (IvfIndex.search_batch adc=),
+        # one of ivf.ADC_MODES; refused at load when unknown
+        self._pq_adc = check_adc(str(pq_cfg.get("adc", DEFAULT_ADC)))
         self._pq_active = False
         # Residual-projection scoring (config: index.rp: {dims, min_size}) —
         # the gather-free bf16 IVF mode; preferred over pq when both are set
@@ -85,26 +87,24 @@ class IndexingService:
         self._rp_min_size = int(rp_cfg.get("min_size", 4096))
         self._rp_active = False
         # Wide-beam traversal (config: index.wide: {dims, seeds, frontier,
-        # steps, min_size}) — the round-3 frontier-parallel graph search
+        # steps, min_size}) — the frontier-parallel graph search
         # (index/wide_beam.py); preferred over rp/pq for unfiltered hnsw
         # queries once active. dims: 0 = full-dim mirror.
         wide_cfg = index_config.get("wide") or {}
         self._wide_on = bool(wide_cfg.get("enabled", bool(wide_cfg)))
-        # 120 keeps the augmented mirror row at exactly 128 lanes (see
+        # 120 keeps the augmented mirror row at exactly 128 elements (see
         # HNSW.enable_wide)
         self._wide_dims = int(wide_cfg.get("dims", 120) or 0) or None
         self._wide_seeds = int(wide_cfg.get("seeds", 4096))
         self._wide_frontier = int(wide_cfg.get("frontier", 0))
         self._wide_steps = int(wide_cfg.get("steps", 0))
-        # window dedup alone is the measured 1M pareto (~25% QPS for
-        # <=0.5 recall points, EXP_WIDE.json); set seen_mask: true to
-        # keep the pre-merge pool-membership compare
+        # window dedup alone by default; set seen_mask: true to keep the
+        # pre-merge pool-membership compare
         self._wide_seen = bool(wide_cfg.get("seen_mask", False))
-        # pool-merge kernel (ops/pallas/bitonic_merge): "auto" = on for
-        # a real accelerator backend, off for CPU (interpret mode is
-        # correct but slow); true/false force it. Default stays off
-        # until the 1M A/B (EXP_MERGE_KERNEL) validates the win.
-        self._wide_merge_kernel = wide_cfg.get("merge_kernel", False)
+        if "merge_kernel" in wide_cfg:
+            raise ValueError(
+                "index.wide.merge_kernel is no longer supported: the pool "
+                "merge always runs lax.approx_min_k; remove the key")
         self._wide_min_size = int(wide_cfg.get("min_size", 4096))
         # mode: "pool" (wide_search, ef-wide best-so-far pool) or "beam"
         # (beam_search — pool-free, merge-light; see index/wide_beam.py)
@@ -116,18 +116,16 @@ class IndexingService:
         self._wide_schedule = (
             tuple((int(f), int(t)) for f, t in sched) if sched else None)
         # batch sizes >= this route to the bf16 scan instead of the
-        # graph (scans amortize HBM reads over the batch — the measured
-        # 1M pareto; 0 disables). Same table, recall ~0.996.
+        # graph (scans amortize device-memory reads over the batch; 0
+        # disables). Same table.
         self._scan_batch_threshold = int(
             index_config.get("scan_batch_threshold", 0) or 0)
         # Filtered-query engine (index.filtered_engine: scan | graph).
         # "scan" (default) serves filter_ids queries with the masked
         # bf16 corpus scan: the scan computes every row's distance
-        # anyway, so masking non-matching rows is free — measured at
-        # 1M x 768 / 10% selectivity it returns the TRUE filtered
-        # top-k at ~0.996 recall and full scan QPS, where the two-pool
-        # wide graph caps at ~0.91 recall @ 518 QPS (EXP_WIDE_FINAL:
-        # deeper ef/rerank only reaches 0.92). "graph" keeps the
+        # anyway, so masking non-matching rows is free and it returns
+        # the TRUE filtered top-k, where a selective filter starves the
+        # two-pool wide graph's result pool. "graph" keeps the
         # reference's navigate-but-exclude traversal
         # (reference hnsw.py:89-134 filter contract) for parity.
         self._filtered_engine = str(
@@ -199,7 +197,8 @@ class IndexingService:
 
             n_dev = len(_jax.devices())
             # index.slices > 1 builds the multi-slice ("slice", "shard")
-            # mesh: hierarchical merges keep DCN traffic at B·k pairs
+            # mesh: hierarchical merges send only B·k pairs per slice
+            # across the outer axis
             n_slices = int(index_config.get("slices", 1) or 1)
             mesh = None
             if n_slices > 1:
@@ -229,7 +228,7 @@ class IndexingService:
         # Async threshold flush for BATCHED inserts (index.flush_async,
         # default on): checkpoint writes pull multi-MB graph tables
         # device->host — serializing that into every post-threshold batch
-        # cut service ingest to ~1/5 of engine speed (BENCH_TIERED r3).
+        # would stall ingest.
         # A single worker writes the latest snapshot (latest-wins; device
         # arrays are immutable so a snapshot is just refs + an id-map
         # copy). The reference-parity single-node path still flushes
@@ -264,8 +263,8 @@ class IndexingService:
             and self.index.size == 0
             and len(nodes) >= 4096
         ):
-            # initial load: exact/clustered MXU bulk construction is 10-30x
-            # faster than streaming inserts and yields better graphs
+            # initial load: exact/clustered matmul bulk construction
+            # beats streaming inserts and yields better graphs
             self._save_nodes(nodes)
             self.index.bulk_build(
                 [n.id for n in nodes],
@@ -290,14 +289,9 @@ class IndexingService:
                 self.save_index()
 
     def _save_nodes(self, nodes: Sequence[Node]) -> None:
-        """Persist a batch through storage.save_many when available (one
-        flush per memmap layer per batch, not two msyncs per node)."""
-        save_many = getattr(self.storage, "save_many", None)
-        if save_many is not None:
-            save_many(list(nodes))
-        else:
-            for node in nodes:
-                self.storage.save(node)
+        """Persist a batch through storage.save_many (one flush per memmap
+        layer per batch, not two msyncs per node)."""
+        self.storage.save_many(list(nodes))
 
     def _ivf_insert(self, nodes: Sequence[Node]) -> None:
         """IVF needs centroids before it can route adds: queue until
@@ -410,8 +404,8 @@ class IndexingService:
         the corpus is big enough for the mode ranking to be meaningful
         (tiny corpora: every mode is exact-ish and microseconds apart).
         For ivf the tuner picks n_probe (recall at fixed n_probe swings
-        wildly with the corpus — BENCH_1M ivf_rp: 0.63 at 64 probes,
-        0.90 at 256), overriding the request's raw n_probe knob.
+        wildly with the corpus), overriding the request's raw n_probe
+        knob.
         Filtered hnsw queries calibrate per selectivity bucket (the
         scan/graph ranking flips with match fraction); filtered ivf
         keeps the direct path (probe lists already fold the mask)."""
@@ -615,16 +609,7 @@ class IndexingService:
             frontier=self._wide_frontier, steps=self._wide_steps,
             seen_mask=self._wide_seen, filter_ids=filter_ids,
             schedule=self._wide_schedule,
-            merge_kernel=self._resolve_merge_kernel(),
         )
-
-    def _resolve_merge_kernel(self) -> bool:
-        mk = self._wide_merge_kernel
-        if mk == "auto":
-            import jax
-
-            return jax.default_backend() != "cpu"
-        return bool(mk)
 
     def save_index(self) -> None:
         self.wait_for_flush()  # one checkpoint writer at a time

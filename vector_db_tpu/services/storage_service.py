@@ -15,11 +15,17 @@ from typing import Any, Dict, Optional, Set
 import numpy as np
 
 from vector_db_tpu.storage import MMapNodeStorage
+from vector_db_tpu.storage.mmap import CONTENT_CHARS, METADATA_CHARS
 from vector_db_tpu.types import Node
 
 
 class StorageService:
-    def __init__(self, file_path: str, dim: int, capacity: int) -> None:
+    def __init__(self, file_path: str, dim: int, capacity: int,
+                 content_chars: int = CONTENT_CHARS,
+                 metadata_chars: int = METADATA_CHARS) -> None:
+        """``content_chars`` / ``metadata_chars`` are the fixed row widths
+        of the content layer (4 bytes per char): the defaults hold the
+        reference's widths, ~61 KB per row."""
         if dim <= 0:
             raise ValueError("Dimension must be greater than 0")
         if capacity <= 0:
@@ -32,6 +38,8 @@ class StorageService:
             metadata_file=self.file_path.with_suffix(".metadata.npy"),
             dim=dim,
             capacity=capacity,
+            content_chars=content_chars,
+            metadata_chars=metadata_chars,
         )
         # Inverted metadata index (native C++ when a toolchain exists,
         # Python dicts otherwise) — same exact-match semantics as the
@@ -58,11 +66,7 @@ class StorageService:
     def save_many(self, nodes) -> None:
         """Batched save: one flush per layer instead of per document (the
         batch-ingest hot path; see MMapNodeStorage.save_many)."""
-        if hasattr(self._storage, "save_many"):
-            self._storage.save_many(nodes)
-        else:
-            for node in nodes:
-                self._storage.save(node)
+        self._storage.save_many(nodes)
         for node in nodes:
             self._meta_index.set(node.id, node.metadata)
 

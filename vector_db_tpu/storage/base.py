@@ -50,6 +50,12 @@ class NodeStorage(ABC):
     def get_next_id(self) -> int:
         """Allocate the next unused id (monotonic)."""
 
+    def save_many(self, nodes) -> None:
+        """Save a batch; backends with per-write flushes override this
+        to flush once per batch."""
+        for node in nodes:
+            self.save(node)
+
     def add(self, node: Node) -> None:
         """Alias for save (reference storage.py:49-51)."""
         self.save(node)

@@ -7,9 +7,9 @@ power-of-two growth. This class owns that substrate; index structures
 (graph tables, inverted lists, PQ codes) hang their own per-slot state off
 it via the ``on_grow`` hook.
 
-This is the TPU analog of the reference's storage-row indirection
+This is the device analog of the reference's storage-row indirection
 (``MMapNodeStorage._id_to_index``, reference storage.py:146-161) — the hot
-tier lives in HBM, durable payloads stay in a ``NodeStorage``.
+tier lives in device memory, durable payloads stay in a ``NodeStorage``.
 """
 
 from __future__ import annotations

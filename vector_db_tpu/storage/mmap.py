@@ -134,10 +134,9 @@ class MMapNodeStorage(NodeStorage):
         """Batched save: write every row, flush ONCE per layer.
 
         The reference's per-save flush (storage.py:229-230) costs two
-        msync syscalls per document — measured 67 docs/s through the batch
-        ingest API. Batch semantics are this framework's own (the
-        reference has no batch API); durability is batch-level, which is
-        what a batch endpoint means."""
+        msync syscalls per document. Batch semantics are this framework's
+        own (the reference has no batch API); durability is batch-level,
+        which is what a batch endpoint means."""
         for node in nodes:
             row = self._id_to_index.get(node.id)
             if row is None:
@@ -213,7 +212,7 @@ class MMapNodeStorage(NodeStorage):
         del self._emb
         del self._meta
 
-    # -- bulk views (TPU ingest path; no reference analog) -------------------
+    # -- bulk views (device ingest path; no reference analog) ----------------
     def get_embeddings(self, ids) -> "tuple[np.ndarray, np.ndarray]":
         """Bulk fetch as ONE fancy-indexed memmap read (vs the base class's
         per-id loop): the 1M-capacity reopen path runs in milliseconds."""

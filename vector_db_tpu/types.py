@@ -1,9 +1,9 @@
 """Core record types.
 
 Parity target: reference ``src/vector_db/types.py:5-10`` (``Node`` dataclass
-with ``id``, ``embedding``, ``metadata``, ``content``). On the TPU side nodes
-are decomposed structure-of-arrays style — ``ids: int32[N]``,
-``embeddings: f32[capacity, dim]`` in HBM, host-side metadata/content — but
+with ``id``, ``embedding``, ``metadata``, ``content``). On the device side
+nodes are decomposed structure-of-arrays style — ``ids: int32[N]``,
+``embeddings: f32[capacity, dim]`` on device, host-side metadata/content — but
 the host-facing API keeps the same ``Node`` record shape.
 """
 
